@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Monocular KITTI runner — TPU equivalent of the reference's main_mono binary
+"""Monocular KITTI runner — JAX equivalent of the reference's main_mono binary
 (reference: examples/main_mono.cpp): left images only, keyframe trajectory export,
 Sim3-aligned ATE when ground truth is present (monocular scale is gauge-free).
 

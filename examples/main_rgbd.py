@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""RGB-D runner — the TPU equivalent of the reference's RGB-D usage of SlamSystem
+"""RGB-D runner — the JAX equivalent of the reference's RGB-D usage of SlamSystem
 (reference: src/slam_system.cpp:131-172 TrackRGBD; the reference ships no RGB-D
 example binary, only the entry point — this runner completes that surface).
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Stereo KITTI runner — the TPU equivalent of the reference's main_stereo binary
+"""Stereo KITTI runner — the JAX equivalent of the reference's main_stereo binary
 (reference: examples/main_stereo.cpp): load config + sequence, feed every stereo
 pair through the system, save the KITTI-format trajectory, report timing and (when
 ground truth is present) ATE.

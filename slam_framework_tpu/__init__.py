@@ -1,10 +1,10 @@
-"""TPU-native visual SLAM engine (JAX / XLA / Pallas / pjit).
+"""Visual SLAM engine in JAX / XLA.
 
 A brand-new implementation of the capabilities of the reference C++ ORB-SLAM2-style
 framework (ThorsteinnJonsson/SLAM_framework, see SURVEY.md): ORB front-end, descriptor
 matching, bag-of-words place recognition, motion-only / local / global bundle adjustment
-and Sim3 pose-graph optimization — all as batched, fixed-shape JAX programs designed for
-the MXU/VPU, with multi-chip scaling via jax.sharding meshes.
+and Sim3 pose-graph optimization — all as batched, fixed-shape JAX programs for an
+accelerator, with multi-device scaling via jax.sharding meshes.
 
 Design stance (SURVEY.md §7): the map is arrays + fixed capacities + masks, not a pointer
 graph; "threads" are pipeline stages; RANSAC is batched hypotheses, not sequential loops.
@@ -16,39 +16,29 @@ import os as _os
 
 import jax as _jax
 
-# Persistent XLA compilation cache: the deployment TPU compiles remotely (~20-60 s
-# per program shape); caching makes every process after the first start warm.
-# Opt out with SLAM_TPU_NO_COMPILE_CACHE=1.
-if not _os.environ.get("SLAM_TPU_NO_COMPILE_CACHE"):
-    import platform as _platform
 
-    # Scope by hostname AND a CPU-feature fingerprint: CPU AOT artifacts embed
-    # the compile machine's ISA features, and loading one compiled elsewhere
-    # can hard-abort the process (observed: SIGABRT in
-    # compilation_cache.get_executable_and_time on entries carrying
-    # +prefer-no-scatter from a different microarchitecture — containers can
-    # share a nodename across machine types, so the hostname alone is not
-    # enough).
-    def _cpu_fingerprint() -> str:
-        import hashlib
+def compile_cache_dir() -> str | None:
+    """Directory this package sets for JAX's persistent compilation cache.
 
-        try:
-            with open("/proc/cpuinfo") as f:
-                flags = [l for l in f if l.startswith(("flags", "model name"))]
-            return hashlib.sha1("".join(sorted(set(flags))).encode()).hexdigest()[:8]
-        except OSError:
-            return "nocpuinfo"
-
-    _cache_dir = _os.environ.get(
-        "SLAM_TPU_COMPILE_CACHE",
-        _os.path.expanduser(
-            f"~/.cache/slam_tpu_xla_{_platform.node()}_{_cpu_fingerprint()}"
-        ),
+    None when JAX_COMPILATION_CACHE_DIR is set (JAX reads it itself) or when
+    SLAM_NO_COMPILE_CACHE opts out. Otherwise a fixed directory inside the
+    checkout, which stays put between runs, so a second process finds what
+    the first compiled."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.environ.get(
+        "SLAM_NO_COMPILE_CACHE"
+    ):
+        return None
+    return _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
     )
-    try:
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # older jax without the knobs — run uncached
-        pass
+
+
+_cache_dir = compile_cache_dir()
+if _cache_dir is not None:
+    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
+if not _os.environ.get("SLAM_NO_COMPILE_CACHE"):
+    # cache every program, however quick to compile, so a warm process
+    # compiles nothing a previous one already did
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 from slam_framework_tpu.config import SlamConfig, CameraConfig, OrbConfig  # noqa: F401

@@ -1,6 +1,6 @@
 """Keyframe database: inverted index + loop/relocalization candidate detection.
 
-TPU-native-pipeline replacement for KeyframeDatabase
+Replacement for KeyframeDatabase
 (reference: src/data/keyframe_database.{h,cpp}): word -> keyframe inverted index
 (:5-18), DetectLoopCandidates (:48-176) and DetectRelocalizationCandidates (:179-299).
 

@@ -1,6 +1,6 @@
 """Bag-of-words vocabulary tree: batched device descent + host training/loading.
 
-TPU-native replacement for DBoW2's TemplatedVocabulary
+Replacement for DBoW2's TemplatedVocabulary
 (reference: third_party/DBoW2/DBoW2/TemplatedVocabulary.h): a k-ary tree of binary
 descriptor centers. The reference transforms one descriptor at a time with nested
 loops (:1213-1272); here the whole frame's 2048 descriptors descend the tree together

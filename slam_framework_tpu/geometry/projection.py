@@ -1,6 +1,6 @@
 """Pinhole camera projection/unprojection + distortion, batched JAX.
 
-TPU-native replacement for the reference's scattered projection math
+Replacement for the reference's scattered projection math
 (reference: src/data/frame.cpp:277-337 IsInFrustum, :599-611 UnprojectStereo,
 src/orb_features/orb_matcher.cpp projection loops, src/data/frame.cpp:614-641
 UndistortKeyPoints). Everything here operates on whole feature/point tensors.

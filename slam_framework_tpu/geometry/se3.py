@@ -1,6 +1,6 @@
 """SO3/SE3 Lie-group operations as pure, batchable JAX functions.
 
-TPU-native replacement for the reference's g2o SE3Quat / Eigen types
+Replacement for the reference's g2o SE3Quat / Eigen types
 (reference: third_party/g2o/g2o/types/types_six_dof_expmap.h, src/util/converter.cpp).
 Everything is fp32, closed-form, and safe at small angles (Taylor fallbacks), so it can
 sit inside jit/scan/vmap without data-dependent branches.
@@ -164,8 +164,9 @@ def se3_inverse(T: jnp.ndarray) -> jnp.ndarray:
 def compose(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
     """(..., 4, 4) @ (..., 4, 4) at pinned HIGHEST precision.
 
-    NEVER compose SE3 matrices with a bare `@` inside jitted code: the TPU
-    default matmul precision routes f32 through the MXU as bf16 passes, and
+    NEVER compose SE3 matrices with a bare `@` inside jitted code: the default
+    accelerator matmul precision rounds f32 operands (TF32 on the H100, bf16
+    passes on some other accelerators), and
     Tcw translation components grow with distance from the world origin — at
     100 m out, one bf16 compose injects ~0.4 m of translation noise and
     ~1e-2 of rotation orthonormality drift (measured: pose_opt returned an R

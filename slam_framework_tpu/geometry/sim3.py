@@ -1,6 +1,6 @@
 """Sim3 (similarity transform) operations for loop closing and pose-graph optimization.
 
-TPU-native replacement for g2o::Sim3 (reference:
+Replacement for g2o::Sim3 (reference:
 third_party/g2o/g2o/types/sim3/sim3.h, used by src/optimizer/optimizer.cpp:718-1152 and
 src/solvers/sim3solver.cpp). A Sim3 element is stored as (R, t, s): a rotation, a
 translation and a positive scale; action on a point is  x -> s * R @ x + t.

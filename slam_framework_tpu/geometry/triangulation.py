@@ -1,12 +1,12 @@
 """Batched two-view DLT triangulation.
 
-TPU-native replacement for the per-match 4x4 SVD triangulation in the reference
+Replacement for the per-match 4x4 SVD triangulation in the reference
 (reference: src/core/local_mapper.cpp:375-392, src/util/initializer.cpp:738-751).
 The reference triangulates one match at a time with cv::SVD; here whole match tensors
 are triangulated at once. Instead of SVD we solve the 4x4 normal equations A^T A x = 0
 via the eigenvector of the smallest eigenvalue, or — faster and equally accurate for
 well-conditioned pairs — the inhomogeneous 3x3 solve. We use the inhomogeneous form
-(set w=1), which is exact for finite points and maps to batched 3x3 solves (VPU/MXU).
+(set w=1), which is exact for finite points and maps to batched 3x3 solves.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def triangulate_dlt(P1: jnp.ndarray, P2: jnp.ndarray, uv1: jnp.ndarray, uv2: jnp
     A = A / jnp.maximum(jnp.linalg.norm(A, axis=-1, keepdims=True), 1e-12)
     # Inhomogeneous LS (w = 1): Householder QR on the 4x3 system, three unrolled
     # reflections of pure elementwise math. This avoids both the ~100 ms batched
-    # eigh (Jacobi sweeps on TPU) and the condition-number squaring of the 3x3
+    # eigh (iterative sweeps) and the condition-number squaring of the 3x3
     # normal equations (which loses cm-level accuracy in fp32 for some pairs).
     # Only points at infinity need the homogeneous form, and the callers'
     # depth/parallax checks cull those anyway.

@@ -15,7 +15,6 @@ import dataclasses
 import os
 from typing import Iterator, Optional, Tuple
 
-import cv2
 import numpy as np
 
 
@@ -35,6 +34,13 @@ class KittiSequence:
         return len(self.left_paths)
 
     def _read_gray(self, path: str) -> np.ndarray:
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(
+                "reading KITTI PNG frames needs OpenCV (the cv2 module); "
+                "install opencv-python-headless"
+            ) from e
         img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
         if img is None:
             raise FileNotFoundError(path)

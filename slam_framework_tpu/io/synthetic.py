@@ -15,7 +15,7 @@ background — smaller than the 31 px BRIEF patch, so descriptors blended
 parallax-shuffled neighbors and even OpenCV ORB found <15% consecutive-frame
 matches; that starved tracking in a way real KITTI footage does not).
 
-Rendering is host-side numpy/cv2 (a handful of vectorized surface
+Rendering is host-side numpy/scipy (a handful of vectorized surface
 intersections + mip-mapped texture lookups per frame); it feeds the same
 entry points a KITTI loader would.
 """
@@ -25,8 +25,8 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Tuple
 
-import cv2
 import numpy as np
+from scipy import ndimage
 
 from slam_framework_tpu.config import CameraConfig
 
@@ -225,19 +225,102 @@ def _az_to_px(az: np.ndarray, surf: _Surface) -> np.ndarray:
 
 
 def _sample_mips(mips, px, py, level, valid, wrap) -> np.ndarray:
-    """Mip-selected bilinear texture lookup via cv2.remap (one pass per level)."""
+    """Mip-selected bilinear texture lookup, one pass per level over the
+    pixels that select it. Columns wrap around full-circle strips and reflect
+    at the ends of clamped ones."""
     out = np.zeros(px.shape, np.float32)
-    border = cv2.BORDER_WRAP if wrap else cv2.BORDER_REFLECT
     for l, tex in enumerate(mips):
         m = valid & (level == l)
         if not m.any():
             continue
         s = 2.0 ** l
-        mapx = (px / s).astype(np.float32)
-        mapy = np.clip(py / s, 0, tex.shape[0] - 1.001).astype(np.float32)
-        sampled = cv2.remap(tex, mapx, mapy, cv2.INTER_LINEAR, borderMode=border)
-        out[m] = sampled[m]
+        mapx = (px[m] / s).astype(np.float32)
+        mapy = np.clip(py[m] / s, 0, tex.shape[0] - 1.001).astype(np.float32)
+        out[m] = remap_linear(tex, mapx, mapy, wrap)
     return out
+
+
+def remap_linear(tex: np.ndarray, mapx: np.ndarray, mapy: np.ndarray,
+                 wrap: bool) -> np.ndarray:
+    """Bilinear lookup tex[mapy, mapx] of a uint8 texture, rounded to whole
+    gray levels like an 8-bit image. Out-of-range columns wrap (`wrap`) or
+    reflect about the edge pixel."""
+    vals = ndimage.map_coordinates(
+        tex.astype(np.float32), [mapy, mapx], order=1,
+        mode="grid-wrap" if wrap else "reflect", prefilter=False,
+    )
+    return np.rint(vals)
+
+
+def _apply_taps(img: np.ndarray, axis: int, idx: np.ndarray, wt: np.ndarray) -> np.ndarray:
+    """Resample `img` along `axis`: output i = sum_k wt[i, k] * img[idx[i, k]]."""
+    out = 0.0
+    for k in range(idx.shape[1]):
+        shape = [1, 1]
+        shape[axis] = -1
+        out = out + wt[:, k].reshape(shape) * np.take(img, idx[:, k], axis=axis)
+    return out
+
+
+def _cubic_taps(n_in: int, n_out: int, a: float = -0.75):
+    """Keys-cubic (a = -0.75) taps for n_in -> n_out samples, pixel centers
+    aligned, edge samples replicated."""
+    x = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    x0 = np.floor(x).astype(np.int64)
+    j = np.arange(-1, 3)
+    d = np.abs((x - x0)[:, None] - j[None, :])
+    wt = np.where(
+        d <= 1.0, ((a + 2.0) * d - (a + 3.0)) * d * d + 1.0,
+        np.where(d < 2.0, ((a * d - 5.0 * a) * d + 8.0 * a) * d - 4.0 * a, 0.0),
+    )
+    return np.clip(x0[:, None] + j[None, :], 0, n_in - 1), wt
+
+
+def resize_cubic(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bicubic resize of a float image to (h, w)."""
+    out = _apply_taps(img.astype(np.float64), 0, *_cubic_taps(img.shape[0], h))
+    return _apply_taps(out, 1, *_cubic_taps(img.shape[1], w)).astype(np.float32)
+
+
+def _area_taps(n_in: int, n_out: int):
+    """Box-filter taps for n_in -> n_out samples: each output is the mean of
+    the input span it covers, partial pixels weighted by their overlap."""
+    scale = n_in / n_out
+    lo = np.arange(n_out) * scale
+    idx = np.floor(lo).astype(np.int64)[:, None] + np.arange(int(np.ceil(scale)) + 1)
+    overlap = np.minimum(lo[:, None] + scale, idx + 1) - np.maximum(lo[:, None], idx)
+    wt = np.where(idx < n_in, np.clip(overlap, 0.0, None), 0.0) / scale
+    return np.minimum(idx, n_in - 1), wt
+
+
+def downsample_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Area-averaging downsample of a uint8 image to (h, w), rounded half up."""
+    out = _apply_taps(img.astype(np.float64), 0, *_area_taps(img.shape[0], h))
+    out = _apply_taps(out, 1, *_area_taps(img.shape[1], w))
+    return np.floor(out + 0.5).astype(np.uint8)
+
+
+def _fill_stamp(tex: np.ndarray, cx: int, cy: int, ax: int, ay: int,
+                ang_deg: float, val: int, ellipse: bool) -> None:
+    """Paint a filled ellipse (semi-axes ax, ay) or rotated box (half-sides
+    ax, ay), turned by ang_deg toward +y, centered at pixel (cx, cy). The
+    shape grows by half a pixel so that, like a filled outline, it covers the
+    pixels its boundary passes through."""
+    r = int(np.ceil(np.hypot(ax, ay))) + 1
+    y0, y1 = max(cy - r, 0), min(cy + r + 1, tex.shape[0])
+    x0, x1 = max(cx - r, 0), min(cx + r + 1, tex.shape[1])
+    if y0 >= y1 or x0 >= x1:
+        return
+    dy, dx = np.mgrid[y0 - cy:y1 - cy, x0 - cx:x1 - cx].astype(np.float64)
+    c, s = np.cos(np.deg2rad(ang_deg)), np.sin(np.deg2rad(ang_deg))
+    u = dx * c + dy * s
+    v = -dx * s + dy * c
+    ax, ay = ax + 0.5, ay + 0.5
+    if ellipse:
+        inside = (u / ax) ** 2 + (v / ay) ** 2 <= 1.0
+    else:
+        inside = (np.abs(u) <= ax) & (np.abs(v) <= ay)
+    tex[y0:y1, x0:x1][inside] = val
 
 
 _WALL_WAVES = ((4, 1.0), (9, 0.9), (21, 0.8), (48, 0.7))
@@ -262,7 +345,7 @@ def _make_texture(
         gh = max(2, int(np.ceil(h / wavelength)) + 1)
         gw = max(2, int(np.ceil(w / wavelength)) + 1)
         n = rng.standard_normal((gh, gw)).astype(np.float32)
-        acc += weight * cv2.resize(n, (w, h), interpolation=cv2.INTER_CUBIC)
+        acc += weight * resize_cubic(n, h, w)
     lo = np.percentile(acc, 1.0)
     hi = np.percentile(acc, 99.0)
     tex = np.clip((acc - lo) / max(hi - lo, 1e-6), 0.0, 1.0) * 240.0 + 8.0
@@ -284,18 +367,13 @@ def _make_texture(
         ay = int(rng.integers(3, 20))
         ang = float(rng.uniform(0, 180))
         val = int(rng.integers(0, 256))
-        if rng.random() < 0.5:
-            cv2.ellipse(tex, (int(cx), int(cy)), (ax, ay), ang, 0, 360, val, -1)
-        else:
-            box = cv2.boxPoints(((float(cx), float(cy)), (2.0 * ax, 2.0 * ay), ang))
-            cv2.fillConvexPoly(tex, box.astype(np.int32), val)
+        _fill_stamp(tex, int(cx), int(cy), ax, ay, ang, val,
+                    ellipse=rng.random() < 0.5)
     mips = [tex]
     for _ in range(_N_MIPS - 1):
         prev = mips[-1]
-        mips.append(
-            cv2.resize(prev, (max(prev.shape[1] // 2, 4), max(prev.shape[0] // 2, 4)),
-                       interpolation=cv2.INTER_AREA)
-        )
+        mips.append(downsample_area(
+            prev, max(prev.shape[0] // 2, 4), max(prev.shape[1] // 2, 4)))
     return mips
 
 

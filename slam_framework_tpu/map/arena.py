@@ -1,6 +1,6 @@
 """Fixed-capacity array map: keyframes, map points, observations — no pointer graph.
 
-TPU-native replacement for the reference's Map/KeyFrame/MapPoint pointer web
+Replacement for the reference's Map/KeyFrame/MapPoint pointer web
 (reference: src/data/map.{h,cpp}, keyframe.{h,cpp}, map_point.{h,cpp}). Design per
 SURVEY.md §7: the map is preallocated arrays + liveness masks; "culling" is a mask
 write; the covisibility graph is derived from the observation tables on demand; there

@@ -1,14 +1,14 @@
-"""Hamming distance between packed 256-bit ORB descriptors — as MXU matmuls.
+"""Hamming distance between packed 256-bit ORB descriptors — as matmuls.
 
-TPU-native replacement for OrbMatcher::DescriptorDistance's popcount loop
+Replacement for OrbMatcher::DescriptorDistance's popcount loop
 (reference: src/orb_features/orb_matcher.cpp:1630-1646). For the all-pairs distance
 matrices every matcher needs, we use the identity
 
     H(a, b) = |a| + |b| - 2 * <a, b>        (a, b as 0/1 bit vectors)
 
-so an (N, 256) x (256, M) int8 matmul on the MXU produces the whole matrix: popcount
+so an (N, 256) x (256, M) int8 matmul produces the whole matrix: popcount
 becomes a dot product. This is the key reformulation that makes data association a
-TPU-friendly dense op instead of a scalar loop.
+dense op instead of a scalar loop.
 """
 
 from __future__ import annotations

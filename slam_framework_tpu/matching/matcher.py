@@ -6,7 +6,7 @@ SearchBySim3, Fuse x2) that all share one inner loop: for a query feature/point,
 candidate set, keep the best/second-best Hamming distance subject to geometric gates,
 then apply threshold / nn-ratio / rotation-histogram filters.
 
-The TPU-native formulation: build the full (N, M) Hamming matrix on the MXU
+The dense formulation: build the full (N, M) Hamming matrix as a matmul
 (matching.hamming), AND it with a boolean gate matrix encoding the geometric windows,
 then do masked row argmin + filters as dense vector ops. Each reference entry point
 becomes "construct gates, call gated_match" (see pipeline/ modules for the
@@ -78,7 +78,7 @@ def resolve_duplicate_columns(res: MatchResult, num_cols: int) -> MatchResult:
     (e.g. orb_matcher.cpp SearchByProjection duplicate handling); this is the
     batched equivalent: a column matched by several rows keeps the best row.
     """
-    # Dense formulation (TPU scatters serialize on colliding indices): build the
+    # Dense formulation (scatters serialize on colliding indices): build the
     # (rows, cols) assignment mask and reduce per column.
     rows_n = res.idx.shape[0]
     cols = jnp.arange(num_cols, dtype=jnp.int32)
@@ -111,7 +111,7 @@ def rotation_consistency(
     two_pi = 2.0 * jnp.pi
     delta = jnp.mod(delta, two_pi)
     bins = jnp.clip((delta * (HISTO_LENGTH / two_pi)).astype(jnp.int32), 0, HISTO_LENGTH - 1)
-    # one-hot reduction instead of scatter-add (TPU scatters serialize on collisions)
+    # one-hot reduction instead of scatter-add (scatters serialize on collisions)
     onehot = (bins[:, None] == jnp.arange(HISTO_LENGTH, dtype=jnp.int32)[None, :])
     hist = jnp.sum(onehot & res.valid[:, None], axis=0, dtype=jnp.int32)
     top3_vals, top3_idx = jax.lax.top_k(hist, 3)
@@ -135,7 +135,7 @@ def window_gate(
     """(N, M) gate: feature j within a square window of radius_i around prediction i.
 
     Reproduces the grid-search windows of SearchByProjection / GetFeaturesInArea
-    (frame.cpp:348-403) without the 64x48 grid: on TPU the dense mask IS the grid.
+    (frame.cpp:348-403) without the 64x48 grid: the dense mask IS the grid.
     """
     du = jnp.abs(pred_uv[:, None, 0] - feat_uv[None, :, 0])
     dv = jnp.abs(pred_uv[:, None, 1] - feat_uv[None, :, 1])

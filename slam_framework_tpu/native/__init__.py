@@ -1,6 +1,6 @@
 """Native (C++) host-runtime components, loaded via ctypes.
 
-The TPU compute path is JAX/XLA; these are the host-side hot loops that mirror the
+The device compute path is JAX/XLA; these are the host-side hot loops that mirror the
 reference's C++ map backend (SURVEY.md §2: map bookkeeping is first-party C++
 there). Compiled on first use with the toolchain baked into the image (g++); a
 pure-numpy fallback keeps the package importable without a compiler.
@@ -21,8 +21,10 @@ _TRIED = False
 
 
 def _build_lib_path() -> str:
+    """Build directory: SLAM_NATIVE_CACHE, else `.native_build` in the checkout."""
     cache = os.environ.get(
-        "SLAM_TPU_NATIVE_CACHE", os.path.expanduser("~/.cache/slam_tpu_native")
+        "SLAM_NATIVE_CACHE",
+        os.path.join(os.path.dirname(os.path.dirname(_HERE)), ".native_build"),
     )
     os.makedirs(cache, exist_ok=True)
     return os.path.join(cache, "arena_ops.so")

@@ -1,6 +1,6 @@
 // Native host runtime for the map arena: the observation-table hot loops.
 //
-// TPU-native counterpart of the reference's C++ map backend
+// Host-side counterpart of the reference's C++ map backend
 // (reference: src/data/map_point.cpp:114-226 AddObservation/EraseObservation/
 // Replace, src/data/keyframe.cpp:190-275 UpdateConnections): the compute path is
 // JAX/XLA, but the per-keyframe bookkeeping — registering ~2000 observations,

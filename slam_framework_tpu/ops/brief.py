@@ -1,6 +1,6 @@
 """Rotated BRIEF (rBRIEF) 256-bit descriptors, batched over all keypoints.
 
-TPU-native replacement for ORBextractor::computeOrbDescriptor
+Replacement for ORBextractor::computeOrbDescriptor
 (reference: src/orb_features/orb_extractor.cpp:49-88) using the standard 256-pair ORB
 sampling pattern (`orb_pattern.npy` — the public OpenCV `bit_pattern_31_` constant,
 coordinates in [-13, 12], also hardcoded in the reference :91-349). Each pair's two
@@ -33,9 +33,12 @@ def pattern():
 
 
 def _einsum_nbk(samples: jnp.ndarray, onehot: jnp.ndarray) -> jnp.ndarray:
-    """einsum('nbk,nb->nk') as a batched dot so it hits the MXU."""
+    """einsum('nbk,nb->nk') as a batched dot. HIGHEST precision: the selected
+    samples feed strict `<` comparisons, and a TF32 product would round
+    near-ties into flipped descriptor bits."""
     return jax.lax.dot_general(
-        onehot[:, None, :], samples, (((2,), (1,)), ((0,), (0,)))
+        onehot[:, None, :], samples, (((2,), (1,)), ((0,), (0,))),
+        precision=jax.lax.Precision.HIGHEST,
     )[:, 0, :]
 
 
@@ -84,19 +87,14 @@ def brief_descriptors(img_blur: jnp.ndarray, xy: jnp.ndarray, angles: jnp.ndarra
     side = 2 * pad + 2  # 40 — even side keeps the window layout lane-aligned
     N = xy.shape[0]
 
-    # Three-stage sampling, all TPU-friendly:
+    # Three-stage sampling, no data-dependent per-sample gather:
     #  1. one CONTIGUOUS (side, side) window per keypoint (a dynamic-slice gather
     #     XLA executes at near-copy speed);
     #  2. the rotation is quantized to ROTATION_BINS precomputed patterns
     #     (original-ORB formulation), so each bin's 512 samples are a STATIC
     #     column selection of the window — no data-dependent gather;
     #  3. a one-hot matmul picks each keypoint's bin.
-    # A direct data-dependent (N, 512) gather from the full image costs ~12 ms
-    # per frame on TPU; this form is ~20x cheaper. (A Pallas DMA/roll window
-    # kernel was prototyped in rounds 3-4 and retired: on the v5e the compiled
-    # kernel measured 5.8 ms per 2000-keypoint image against 3.3 ms for this
-    # XLA dynamic-slice form — per-keypoint grid launches lose to XLA's fused
-    # gather at these sizes.)
+    # Its cost against a direct (N, 512) gather is not measured on the H100.
     padded = jnp.pad(img_blur, pad + 1, mode="edge")
 
     def window(p):
@@ -133,9 +131,8 @@ def descriptors_from_windows(
 def fused_windows(img: jnp.ndarray, blur: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     """ONE per-keypoint window gather serving both orientation (channel 0, the
     raw level image) and BRIEF (channel 1, the blurred level): (N, side, side,
-    2) with window corner = keypoint - MAX_ROTATED_OFFSET. Per-slice latency
-    dominates the gather cost, so stacking channels halves it (measured
-    9.5 -> 5.2 ms/image at 2000 keypoints)."""
+    2) with window corner = keypoint - MAX_ROTATED_OFFSET. One gather of two
+    stacked channels replaces two gathers of one."""
     pad = MAX_ROTATED_OFFSET
     side = 2 * pad + 2
     stacked = jnp.stack([img, blur], axis=-1)

@@ -1,6 +1,6 @@
 """Top-level ORB extractor: pyramid -> FAST -> uniform select -> orientation -> rBRIEF.
 
-TPU-native replacement for ORBextractor::Compute
+Replacement for ORBextractor::Compute
 (reference: src/orb_features/orb_extractor.cpp:985-1049). One jitted program per image
 geometry; all outputs are fixed-shape (max_features slots + validity mask), so the whole
 per-frame front-end compiles once and never recompiles during a sequence.
@@ -24,19 +24,11 @@ from slam_framework_tpu.config import OrbConfig
 from slam_framework_tpu.ops import brief, fast, orient, pyramid, select
 
 
-def _pallas_available() -> bool:
-    """Mosaic (Pallas TPU) lowering needs a real TPU backend; the CPU test mesh
-    uses the pure-XLA path in ops/fast.py instead."""
-    try:
-        return jax.default_backend() != "cpu"
-    except Exception:
-        return False
-
 DETECT_MARGIN = 16  # = EDGE_THRESHOLD - 3 (reference orb_extractor.cpp:707-713)
 
 
 class Features(NamedTuple):
-    """Fixed-capacity per-frame feature set (the TPU Frame's feature block)."""
+    """Fixed-capacity per-frame feature set (the device Frame's feature block)."""
 
     xy: jnp.ndarray        # (N, 2) fp32 — level-0 pixel coords (x, y)
     response: jnp.ndarray  # (N,) fp32
@@ -62,7 +54,6 @@ class OrbExtractor:
         self.per_level = pyramid.features_per_level(
             self.max_features, cfg.num_levels, cfg.scale_factor
         )
-        self._use_pallas = _pallas_available()
         self._jit = jax.jit(self._extract)
 
     def __call__(self, img: jnp.ndarray) -> Features:
@@ -93,13 +84,8 @@ class OrbExtractor:
             # only ever comes from a strictly stronger neighbor, which passes every
             # threshold the suppressed pixel passes, so NMS commutes with the
             # threshold cut (reference runs cv::FAST twice per cell,
-            # orb_extractor.cpp:750-757). On TPU the fused Pallas kernel computes
-            # the same map in one VMEM pass (bit-exact away from the masked border).
-            if self._use_pallas:
-                from slam_framework_tpu.ops import fast_pallas
-
-                nms = fast_pallas.fast_nms_strength(lvl_img)
-            else:
+            # orb_extractor.cpp:750-757).
+            with jax.named_scope("fast"):
                 nms = fast.nms3x3(fast.fast_strength_map(lvl_img))
             strength = fast.mask_border(nms, DETECT_MARGIN)
             score_hi = jnp.where(strength > float(cfg.ini_thresh_fast), strength, 0.0)

@@ -1,6 +1,6 @@
-"""FAST-9/16 corner detection as whole-image vectorized ops (VPU-friendly).
+"""FAST-9/16 corner detection as whole-image vectorized ops.
 
-TPU-native replacement for the per-cell cv::FAST calls in ORBextractor
+Replacement for the per-cell cv::FAST calls in ORBextractor
 (reference: src/orb_features/orb_extractor.cpp:750-757). Instead of looping over 30px
 cells and calling a scalar detector, we compute a dense corner-strength map for the
 whole level in one shot: 16 shifted copies of the image, bright/dark masks, and a

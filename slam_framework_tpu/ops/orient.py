@@ -1,6 +1,6 @@
 """Intensity-centroid keypoint orientation, batched over all keypoints.
 
-TPU-native replacement for ORBextractor's IC_Angle
+Replacement for ORBextractor's IC_Angle
 (reference: src/orb_features/orb_extractor.cpp:18-45): moments m10/m01 of the 31x31
 circular patch around each keypoint, angle = atan2(m01, m10). The reference loops rows
 of the circular patch per keypoint; here we gather all patches at once and reduce with

@@ -1,6 +1,6 @@
 """Batched image pyramid + Gaussian blur.
 
-TPU-native replacement for ORBextractor::ComputePyramid
+Replacement for ORBextractor::ComputePyramid
 (reference: src/orb_features/orb_extractor.cpp:1051-1076) and the pre-descriptor
 GaussianBlur(7x7, sigma=2) (orb_extractor.cpp:1030 area). The pyramid is a Python list
 of per-level arrays (static distinct shapes — one XLA program per image geometry), all
@@ -47,10 +47,9 @@ def _interp_matrix(n_in: int, n_out: int):
 
 
 def resize_bilinear(img: jnp.ndarray, out_hw) -> jnp.ndarray:
-    """Bilinear resize as two dense matmuls (rows then cols) so the MXU does the
-    work. gather-based jax.image.resize costs ~25 ms for an 8-level KITTI pyramid
-    on TPU; the matmul form is ~100x less wall-clock (the interp matrices are
-    static constants folded into the program)."""
+    """Bilinear resize as two dense matmuls (rows then cols) instead of the
+    gather-based jax.image.resize (the interp matrices are static constants
+    folded into the program)."""
     Mr = jnp.asarray(_interp_matrix(img.shape[0], out_hw[0]))
     Mc = jnp.asarray(_interp_matrix(img.shape[1], out_hw[1]))
     return jax.lax.dot_general(
@@ -70,7 +69,7 @@ def _composed_level_matrices(height: int, width: int, num_levels: int, scale_fac
     (the reference's ComputePyramid, orb_extractor.cpp:1051-1076), but every
     level becomes one independent pair of matmuls straight from the level-0
     image: no serial dependence between levels, and XLA schedules all levels
-    concurrently on the MXU. Composed in float64 on host, cast to fp32 once.
+    concurrently as matmuls. Composed in float64 on host, cast to fp32 once.
     """
     shapes = level_shapes(height, width, num_levels, scale_factor)
     mats = [(None, None)]  # level 0 is the identity
@@ -101,7 +100,7 @@ def build_pyramid(img: jnp.ndarray, num_levels: int, scale_factor: float) -> Lis
 
 
 def _apply_sep(img: jnp.ndarray, M: jnp.ndarray, N: jnp.ndarray) -> jnp.ndarray:
-    """(M @ img) @ N.T as two MXU matmuls."""
+    """(M @ img) @ N.T as two matmuls."""
     return jax.lax.dot_general(
         jax.lax.dot_general(M, img, (((1,), (0,)), ((), ())),
                             precision=jax.lax.Precision.HIGHEST),
@@ -173,8 +172,8 @@ def _blur_matrix(n: int, ksize: int, sigma: float):
 def gaussian_blur(img: jnp.ndarray, ksize: int = 7, sigma: float = 2.0) -> jnp.ndarray:
     """Separable Gaussian blur with replicate padding, (H, W) fp32.
 
-    Expressed as two dense banded matmuls so the MXU does the work — a
-    single-channel conv_general_dilated runs ~15x slower on TPU for this shape."""
+    Expressed as two dense banded matmuls rather than a single-channel
+    conv_general_dilated."""
     Br = jnp.asarray(_blur_matrix(img.shape[0], ksize, sigma))
     Bc = jnp.asarray(_blur_matrix(img.shape[1], ksize, sigma))
     return jax.lax.dot_general(

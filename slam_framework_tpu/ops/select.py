@@ -1,6 +1,6 @@
 """Spatially-uniform keypoint selection: fixed-grid ranked top-K.
 
-TPU-native replacement for the reference's sequential quadtree distribution
+Replacement for the reference's sequential quadtree distribution
 (ORBextractor::DistributeOctTree, src/orb_features/orb_extractor.cpp:480-704) and the
 per-cell FAST threshold fallback 20 -> 7 (:750-757).
 

@@ -1,10 +1,10 @@
 """Rectified stereo matching: row-banded Hamming search + SAD subpixel refinement.
 
-TPU-native replacement for Frame::ComputeStereoMatches
+Replacement for Frame::ComputeStereoMatches
 (reference: src/data/frame.cpp:406-577). The reference builds per-row candidate lists
 and loops left keypoints; here the whole thing is one dense program:
 
-  1. (N_l, N_r) Hamming matrix on the MXU (matching.hamming), gated by
+  1. (N_l, N_r) Hamming matrix as a matmul (matching.hamming), gated by
      row-band  |v_l - v_r| <= 2 * scale_l,  octave agreement (+-1), and disparity in
      [min_disp, max_disp]  (reference :427-443, :469-480).
   2. best right match per left keypoint, threshold (TH_HIGH + TH_LOW)/2 = 75 (:466).

@@ -1,6 +1,6 @@
 """Global bundle adjustment: matrix-free Schur-complement CG over the whole map.
 
-TPU-native replacement for Optimizer::GlobalBundleAdjustemnt/BundleAdjustment
+Replacement for Optimizer::GlobalBundleAdjustemnt/BundleAdjustment
 (reference: src/optimizer/optimizer.cpp:18-207) and the loop-closing follow-up GBA
 (src/core/loop_closer.cpp:73-172). The reference builds a g2o sparse system over all
 keyframes/points; here the reduced camera system is never materialized:
@@ -14,7 +14,7 @@ keyframes/points; here the reduced camera system is never materialized:
     (C,C,6,6) Schur tensor is O(P·C^2) to build — fine at C=32, hopeless at C=1024);
   - per-camera reductions (Hcc blocks, gradients, scatter of the second Schur term)
     use a fixed-fanout slot table cam_obs_slots (C, Oc), the camera-side analogue of
-    pt_obs_slots: gathers instead of scatters, which TPUs serialize on collisions.
+    pt_obs_slots: gathers instead of scatters, which serialize on collisions.
 
 This is also the shape the distributed configs shard: cameras/points/observations are
 flat tensors, so a mesh partition of the obs table + psum of the (C,6) CG vectors is
@@ -143,7 +143,7 @@ def optimize_global(
 ) -> GlobalBAResult:
     """When axis_name is set, the problem's point/observation tensors are device
     shards inside a shard_map over that mesh axis: every camera-space reduction is
-    followed by a psum over ICI — the distributed Schur BA of SURVEY.md §5.8. The
+    followed by a psum across devices — the distributed Schur BA of SURVEY.md §5.8. The
     camera state stays replicated; each device owns a block of points + their
     observations (built by parallel/dist_ba.py)."""
 

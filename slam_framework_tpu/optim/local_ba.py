@@ -1,6 +1,6 @@
 """Local/global bundle adjustment with explicit Schur-complement reduction.
 
-TPU-native replacement for Optimizer::LocalBundleAdjustment and
+Replacement for Optimizer::LocalBundleAdjustment and
 GlobalBundleAdjustemnt/BundleAdjustment (reference: src/optimizer/optimizer.cpp:18-207,
 :413-716), which delegate to g2o's BlockSolver_6_3 with marginalized landmark vertices.
 
@@ -16,7 +16,7 @@ mesh for the distributed configs — see parallel/):
     assembled from per-point observation pair products (points' observing cameras are
     capped at O_max slots, the standard trick to keep the pair tensor static);
   - dense (6C x 6C) solve for camera updates (C <= ~128 locally: a few-thousand-dim
-    MXU-friendly dense system), then back-substitution for point updates;
+    dense system), then back-substitution for point updates;
   - Levenberg damping with accept/reject, Huber IRLS weights;
   - reference schedule: 5 iterations, drop chi2 outliers, 10 more iterations
     (optimizer.cpp:607-668), thresholds 5.991 mono / 7.815 stereo.
@@ -68,8 +68,8 @@ def _project_scalars(cam_pose, pt_pos, prob: BAProblem, K: Intrinsics):
     """Scalar (lane-friendly) projection: returns per-obs (M,) arrays.
 
     Pose entries are fetched with 1-D gathers from (C,) columns — an (M,4,4) gather
-    or a one-hot matmul producing (M,16) has a pathological TPU layout (measured
-    ~86 ms vs ~7 ms for the whole residual stage at M=16384)."""
+    or a one-hot matmul producing (M,16) had a pathological layout on an earlier
+    accelerator; not re-measured on the H100)."""
     cp = cam_pose.reshape(cam_pose.shape[0], 16)
     cols = [cp[:, k][prob.obs_cam] for k in range(12)]
     R00, R01, R02, t0, R10, R11, R12, t1, R20, R21, R22, t2 = cols
@@ -137,8 +137,8 @@ def _chi2(r, z, prob: BAProblem):
 
 
 def _inv3x3(A: jnp.ndarray) -> jnp.ndarray:
-    """Closed-form batched 3x3 inverse (adjugate/determinant) — elementwise VPU ops
-    instead of batched LU, which is orders of magnitude slower on TPU."""
+    """Closed-form batched 3x3 inverse (adjugate/determinant) — elementwise ops
+    instead of a batched LU of many tiny matrices."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -169,9 +169,12 @@ def _pcg(A: jnp.ndarray, b: jnp.ndarray, iters: int = 50) -> jnp.ndarray:
     d_inv = 1.0 / jnp.maximum(jnp.abs(jnp.diag(A)), 1e-12)
 
     def mv(v):
-        # pinned precision: bf16 matvecs stall CG convergence on the
-        # ill-conditioned Schur system (diag spans ~1e6)
+        # pinned precision: reduced-precision (TF32/bf16) matvecs stall CG
+        # convergence on the ill-conditioned Schur system (diag spans ~1e6)
         return jnp.matmul(A, v, precision=jax.lax.Precision.HIGHEST)
+
+    def dot(a, c):
+        return jnp.dot(a, c, precision=jax.lax.Precision.HIGHEST)
 
     x0 = jnp.zeros_like(b)
     r0 = b
@@ -181,15 +184,15 @@ def _pcg(A: jnp.ndarray, b: jnp.ndarray, iters: int = 50) -> jnp.ndarray:
     def body(i, st):
         x, r, z, pvec, rz = st
         Ap = mv(pvec)
-        alpha = rz / jnp.maximum(jnp.dot(pvec, Ap), 1e-20)
+        alpha = rz / jnp.maximum(dot(pvec, Ap), 1e-20)
         x = x + alpha * pvec
         r = r - alpha * Ap
         z = d_inv * r
-        rz_new = jnp.dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / jnp.maximum(rz, 1e-20)
         return (x, r, z, z + beta * pvec, rz_new)
 
-    x, *_ = jax.lax.fori_loop(0, iters, body, (x0, r0, z0, p0, jnp.dot(r0, z0)))
+    x, *_ = jax.lax.fori_loop(0, iters, body, (x0, r0, z0, p0, dot(r0, z0)))
     return x
 
 
@@ -223,7 +226,7 @@ def optimize(
             du, dv, dur, _ = reproj.camera_rows(x, y, z, K)
             pu, pv, pur = reproj.point_rows(x, y, z, R_cols, K)
 
-            # Hcc (21 unique) + bc (6): one stacked (M, 27) matrix, one MXU matmul
+            # Hcc (21 unique) + bc (6): one stacked (M, 27) matrix, one matmul
             # against the camera one-hot.
             cols = []
             for i in range(6):
@@ -235,8 +238,9 @@ def optimize(
             onehot_cam = jax.nn.one_hot(prob.obs_cam, C, dtype=jnp.float32)  # (M, C)
             per_cam = jax.lax.dot_general(
                 onehot_cam, stacked, (((0,), (0,)), ((), ())),
+                precision=jax.lax.Precision.HIGHEST,
                 preferred_element_type=jnp.float32,
-            )  # (C, 27)
+            )  # (C, 27) — HIGHEST: a TF32 sum would round the Hessian blocks
             Hcc = jnp.zeros((C, 6, 6))
             idx = 0
             for i in range(6):
@@ -286,7 +290,7 @@ def optimize(
 
             lamI3 = lam * jnp.eye(3)
             Hpp_damped = Hpp + lamI3[None] + 1e-8 * jnp.eye(3)[None]
-            Hpp_inv = _inv3x3(Hpp_damped)  # closed form: batched LU is slow on TPU
+            Hpp_inv = _inv3x3(Hpp_damped)  # closed form, no batched LU
 
             # Schur: S = Hcc_aug - sum_p sum_{a,b in obs(p)} W_a Hpp_p^-1 W_b^T
             # as U_p = sum_o onehot(cam) Y_o, V_p likewise with W, S -= U V^T over P.
@@ -311,9 +315,9 @@ def optimize(
             S_big = S_big * mask6[:, None] * mask6[None, :] + jnp.diag(1.0 - mask6)
             rhs_big = rhs.reshape(-1) * mask6
 
-            # SPD system: Jacobi-preconditioned CG. Factorizations (LU/Cholesky) of
-            # even a 192x192 cost ~10 ms/call on TPU (sequential panels); CG is pure
-            # matvecs on the MXU (~free) and converges well on the damped system.
+            # SPD system: Jacobi-preconditioned CG. Factorizations (LU/Cholesky)
+            # run sequential panels; CG is pure matvecs and converges well on the
+            # damped system.
             dxc = -_pcg(S_big, rhs_big, iters=28).reshape(C, 6)
             # Back-substitute points: dp = -Hpp^-1 (bp + sum_obs W^T dxc[cam])
             Wt_dxc = _einsum("poij,poi->poj", Wp, dxc[cam_of])  # (P,O,3)

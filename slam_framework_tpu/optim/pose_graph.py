@@ -1,11 +1,11 @@
 """Sim3 essential-graph (pose-graph) optimization — batched Gauss-Newton in JAX.
 
-TPU-native replacement for Optimizer::OptimizeEssentialGraph (reference:
+Replacement for Optimizer::OptimizeEssentialGraph (reference:
 src/optimizer/optimizer.cpp:718-960), which runs g2o LM over VertexSim3Expmap
 vertices connected by EdgeSim3 edges (spanning tree, covisibility >= 100 shared
 points, and loop edges) after a loop closure.
 
-Design (idiomatic TPU, not a g2o translation):
+Design (dense fixed-shape JAX, not a g2o translation):
   - Vertices are Sim3 world->camera transforms stored as struct-of-arrays
     (R: (V,3,3), t: (V,3), s: (V,)) with a validity mask; fixed vertices (the loop
     keyframe) are masked out of the update.
@@ -124,7 +124,7 @@ def optimize(prob: PoseGraphProblem, iters: int = 20, cg_iters: int = 60,
     edge-indexed reduction (gradient scatter, block-diagonal, Hessian-vector
     product, cost) is psum'd so each device holds the full replicated result —
     the same SPMD recipe as parallel/dist_ba.py (all-reduce payload is O(V·7)
-    per CG iteration, riding ICI)."""
+    per CG iteration, across the device interconnect)."""
     V = prob.v_R.shape[0]
     free = (~prob.v_fixed) & prob.v_mask
     free_f = free.astype(jnp.float32)[:, None]  # (V, 1)

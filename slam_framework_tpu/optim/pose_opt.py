@@ -1,6 +1,6 @@
 """Motion-only bundle adjustment (pose optimization) — the per-frame hot solver.
 
-TPU-native replacement for Optimizer::PoseOptimization
+Replacement for Optimizer::PoseOptimization
 (reference: src/optimizer/optimizer.cpp:209-411): optimize a single SE3 camera pose
 against fixed 3D map points with Huber-robustified mono/stereo reprojection edges.
 
@@ -114,7 +114,7 @@ def optimize_pose(
         def body(carry, _):
             Tcw, lam = carry
             # SoA residual/Jacobian assembly (see optim/reproj.py): all per-obs
-            # quantities are (N,) arrays so the VPU runs at full lane width.
+            # quantities are (N,) arrays (full-width elementwise ops).
             Xc = se3.transform_points(Tcw, obs.points_w)
             x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
             inv_z = 1.0 / jnp.where(z > 1e-6, z, 1e-6)
@@ -141,7 +141,6 @@ def optimize_pose(
             # LM step with multiplicative damping on the diagonal.
             Hd = H + lam * jnp.diag(jnp.diag(H)) + 1e-9 * jnp.eye(6)
             dx = -chol_solve_small(Hd, b, 6)  # GN: J^T W J dx = -J^T W r
-            # (jnp.linalg.solve on 6x6 costs ~3.7 ms/call on TPU — see utils/linalg)
             Tcw_new = se3.compose(se3.se3_exp(dx), Tcw)
             # Accept if total robust error decreased.
             r_new, _, z_new = _residuals_jacobians(Tcw_new, obs, K)

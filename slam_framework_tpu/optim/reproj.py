@@ -1,11 +1,11 @@
 """Reprojection residuals/Jacobians in structure-of-arrays (lane-friendly) layout.
 
-TPU lanes live on the LAST axis (8x128 VPU tiles). The natural (M, 3, 6) Jacobian
-tensors waste >95% of each tile on padding and made the LM inner loops of pose
-optimization and bundle adjustment latency-bound. Here every Jacobian row entry is a
-plain (M,) array (observation index last), products are elementwise VPU ops at full
-width, and normal-equation blocks are built from the 21/18/6 unique scalar products
-directly.
+Vector hardware works along the LAST axis. The natural (M, 3, 6) Jacobian tensors
+put tiny dimensions there and made the LM inner loops of pose optimization and
+bundle adjustment latency-bound on an earlier accelerator. Here every Jacobian row
+entry is a plain (M,) array (observation index last), products are full-width
+elementwise ops, and normal-equation blocks are built from the 21/18/6 unique scalar
+products directly.
 
 Analytic rows (left-multiplied twist xi = (omega, upsilon), residual = meas - pred,
 J = d(residual)/dxi = -d(pred)/dxi):

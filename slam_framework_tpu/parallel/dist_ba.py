@@ -2,8 +2,8 @@
 
 The multi-chip configuration mandated by SURVEY.md §5.8 / BASELINE.md: the reference
 has no distributed backend (its "communication fabric" is mutexes inside one
-process); the TPU-native design shards the BA problem's landmark/observation tensors
-across a 1-D mesh and reduces the camera system over ICI:
+process); this design shards the BA problem's landmark/observation tensors
+across a 1-D mesh and reduces the camera system across devices:
 
   - partition: points are block-assigned to devices TOGETHER WITH all their
     observations (a point's normal-equation block and Schur contribution are then
@@ -14,7 +14,7 @@ across a 1-D mesh and reduces the camera system over ICI:
     plus 1 per CG iteration, each <= C*27 floats: the all-reduce of the *reduced*
     camera system, never the raw observations);
   - the whole optimizer runs inside one jax.shard_map: XLA sees a single SPMD
-    program and schedules the collectives on ICI.
+    program and schedules the collectives (NCCL on GPUs).
 
 Scaling model: per-device work is O(M/D) per CG iteration; the psum payload is
 O(C). With M >> C·D (true for 100k-landmark maps) efficiency stays near-linear.

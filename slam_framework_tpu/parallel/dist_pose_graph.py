@@ -13,7 +13,7 @@ SPMD layout (same recipe as parallel/dist_ba.py):
     inside optim/pose_graph.optimize (gradient scatter, block-Jacobi diagonal,
     Hessian-vector product, cost) is psum'd via its axis_name hook, so each
     device steps the identical replicated vertex state.
-  - All-reduce payload per CG iteration is one (V, 7) array — rides ICI.
+  - All-reduce payload per CG iteration is one (V, 7) array.
 """
 
 from __future__ import annotations

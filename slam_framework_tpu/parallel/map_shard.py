@@ -4,7 +4,7 @@ point ownership off the per-frame path.
 
 SURVEY.md §5.8 mandates keyframe/map-point block sharding as a first-class
 distributed component (the reference's only "fabric" is in-process mutexes,
-src/data/map.h:38). This module implements the SCALING.md design:
+src/data/map.h:38). This module implements that design:
 
   1. Partition unit = covisibility block: keyframes are split into contiguous
      trajectory segments balanced by observation count (covisibility is
@@ -150,9 +150,9 @@ def migrate_points(
     overflow rows are dropped with their mask cleared (callers size R with
     headroom; the bench partition keeps ownership churn at loop seams only).
 
-    This is the off-critical-path ownership transfer of SCALING.md step 4: a
+    This is the off-critical-path ownership transfer of step 4 above: a
     point row is ~100 B; a loop-closure migration of 10k points moves ~1 MB
-    over DCN in one collective.
+    between devices in one collective.
     """
     D = mesh.devices.size
     R = rows.shape[0] // D

@@ -2,9 +2,9 @@
 
 The reference is a single-process C++ system (its "communication fabric" is
 mutexes, SURVEY.md §2.3); SURVEY §5.8 / BASELINE.md mandate a multi-HOST story
-for the TPU-native engine: ≥70% scaling efficiency at N≥2 hosts. On a real pod
-slice each host drives its local chips and JAX's distributed runtime links the
-processes — collectives ride ICI within a slice and DCN across slices. This
+for this engine. On a real cluster each host drives its local devices and JAX's
+distributed runtime links the processes — collectives run over the in-host
+interconnect and the network between hosts. This
 module is the process-level glue:
 
   - `initialize()` — one call per process; wires the JAX distributed runtime
@@ -42,8 +42,8 @@ def initialize(
     """Initialize this process's slice of the global runtime.
 
     Must run before any JAX backend use. `local_device_count` forces N virtual
-    CPU devices per process (test/demo mode); on real TPU hosts leave it None
-    and the TPU runtime reports the local chips.
+    CPU devices per process (test/demo mode); on real accelerator hosts leave
+    it None and the runtime reports the local devices.
     """
     if local_device_count is not None and platform == "cpu":
         flags = os.environ.get("XLA_FLAGS", "")

@@ -1,6 +1,6 @@
 """Per-frame front-end: extraction + stereo association as one jitted program.
 
-TPU-native replacement for the Frame constructors
+Replacement for the Frame constructors
 (reference: src/data/frame.cpp:61-209 — parallel L/R ORB extraction, undistortion,
 ComputeStereoMatches, grid assignment). The reference's 64x48 feature grid exists to
 accelerate windowed search; our matchers build dense window gates instead, so the grid
@@ -98,7 +98,7 @@ class StereoFrontend:
 class RgbdFrontend:
     """grayscale + registered depth map -> FrameData.
 
-    TPU-native replacement for the RGB-D Frame constructor (reference:
+    Replacement for the RGB-D Frame constructor (reference:
     src/data/frame.cpp:120-158 + ComputeStereoFromRGBD :579-597): depth is sampled
     at each keypoint's integer location and a virtual right-image coordinate
     u_r = u - bf/d is synthesized so the whole stereo pipeline (tracking, BA stereo

@@ -1,15 +1,15 @@
 """Batched mapping ops: epipolar-gated triangulation of new map points.
 
-TPU-native replacement for LocalMapper::CreateNewMapPoints +
+Replacement for LocalMapper::CreateNewMapPoints +
 OrbMatcher::SearchForTriangulation (reference: src/core/local_mapper.cpp:258-492,
 src/orb_features/orb_matcher.cpp:634-802): the reference walks vocabulary nodes and
 matches feature-by-feature against each neighbor keyframe, then triangulates one
 match at a time with cv::SVD. Here ALL neighbors are processed in one device
-program: the (Nn, N, N) epipolar-gated Hamming tensor on the MXU, mutual-best
+program: the (Nn, N, N) epipolar-gated Hamming tensor as a matmul, mutual-best
 matching, batched DLT triangulation and validity checks as masked lanes.
 
 The reference's vocabulary-node pruning (FeatureVector alignment) exists to cut CPU
-cost; the dense matrix is faster on the MXU, and the epipolar + octave gates carry
+cost; the dense matrix is a plain matmul, and the epipolar + octave gates carry
 the selectivity.
 """
 

@@ -1,6 +1,6 @@
 """Monocular tracking stage: two-view bootstrap + scale-normalized tracking.
 
-TPU-native replacement for the reference's monocular path:
+Replacement for the reference's monocular path:
 MonocularInitialization (src/core/tracker.cpp:297-364), CreateInitialMapMonocular
 (:366-460), SearchForInitialization (src/orb_features/orb_matcher.cpp:264-382) and
 the mono keyframe policy (:1271-1278 — ref-ratio 0.9, no stereo close-point logic).

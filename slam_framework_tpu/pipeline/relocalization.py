@@ -1,6 +1,6 @@
 """Relocalization: BoW candidates → batched PnP RANSAC → motion-only BA.
 
-TPU-native replacement for Tracker::Relocalization (reference:
+Replacement for Tracker::Relocalization (reference:
 src/core/tracker.cpp:826-991): on tracking loss, query the keyframe database for
 BoW candidates (keyframe_database.cpp:179-299), match the lost frame's descriptors
 against each candidate's map points (SearchByBoW, orb_matcher.cpp:133-262), solve
@@ -8,7 +8,7 @@ EPnP-RANSAC (pnp_solver.cpp — here batched-hypothesis DLT resection), refine w
 motion-only BA, and accept at >= 50 inliers (tracker.cpp:977).
 
 The reference round-robins 5 RANSAC iterations per candidate across a while-loop;
-the TPU formulation runs all hypotheses of a candidate at once, so candidates are
+the batched formulation runs all hypotheses of a candidate at once, so candidates are
 simply tried best-score-first.
 """
 

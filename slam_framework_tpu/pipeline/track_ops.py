@@ -1,6 +1,6 @@
 """Device-side tracking kernels: motion-model association + local-map association.
 
-TPU-native replacements for the two per-frame hot associations + optimizations:
+Replacements for the two per-frame hot associations + optimizations:
   - TrackWithMotionModel: OrbMatcher::SearchByProjection(F, LastFrame, th)
     (reference: src/orb_features/orb_matcher.cpp:1312-1453) followed by
     Optimizer::PoseOptimization (src/core/tracker.cpp:756-824).
@@ -8,7 +8,7 @@ TPU-native replacements for the two per-frame hot associations + optimizations:
     (src/data/frame.cpp:277-337, orb_matcher.cpp:13-103) followed by PoseOptimization
     (tracker.cpp:1136-1174).
 
-Each is one jitted fixed-shape program: dense MXU Hamming + dense gate masks replace
+Each is one jitted fixed-shape program: dense matmul Hamming + dense gate masks replace
 the grid lookups; the two PoseOptimizations run inside the same program, so a tracked
 frame is TWO device dispatches end-to-end (front-end + tracking).
 """
@@ -122,7 +122,7 @@ def track_motion(
     obs = _obs_from_assoc(cur, last_pts, assoc)
     # 3 rounds x 4 LM iters: per-frame tracking starts near the optimum; the
     # reference's 4x10 schedule (optimizer.cpp:359) is sized for cold starts and
-    # costs 80 sequential solves per frame on TPU.
+    # costs 80 sequential solves per frame.
     opt = pose_opt.optimize_pose(pred_pose, obs, K, n_rounds=3, n_iters=4)
     return TrackResult(
         pose=opt.pose,
@@ -219,7 +219,7 @@ def track_reference_fallback(
     (the predicted pose is exactly what can't be trusted) — with mutual-best,
     0.7 nn-ratio and TH_LOW acceptance, then optimize from the LAST pose.
     The reference restricts candidates by shared vocabulary node to cut CPU cost;
-    the dense Hamming matrix on the MXU needs no such pruning."""
+    the dense Hamming matrix needs no such pruning."""
     ham = hamming.hamming_matrix(block.desc, cur.desc)
     gate = block.mask[:, None] & cur.valid[None, :]
     res = matcher.gated_match(ham, gate, max_dist=TH_LOW, nn_ratio=0.7, mutual=True)
@@ -249,7 +249,7 @@ def fuse_candidates(
 ) -> jnp.ndarray:
     """Per unassociated feature: the block point it duplicates, or -1.
 
-    TPU formulation of OrbMatcher::Fuse (reference: orb_matcher.cpp:804-954): project
+    Dense formulation of OrbMatcher::Fuse (reference: orb_matcher.cpp:804-954): project
     map points into the frame, and for features that are NOT yet associated, accept a
     strict match (radius 4 * scale(predicted level), Hamming <= TH_LOW, octave within
     +-1, depth-consistent for stereo features). The keyframe-creation path uses this to
@@ -291,7 +291,7 @@ def fuse_candidates(
 
 def _invert_matches(res: matcher.MatchResult, n_rows: int, n_cols: int) -> jnp.ndarray:
     """Row->col matches to per-column best row index (-1 none), dense formulation
-    (argmin over a (R, C) masked distance matrix — TPU scatters serialize)."""
+    (argmin over a (R, C) masked distance matrix — no colliding scatters)."""
     cols = jnp.arange(n_cols, dtype=jnp.int32)
     chose = res.valid[:, None] & (res.idx[:, None] == cols[None, :])
     d = jnp.where(chose, res.dist[:, None], matcher.BIG)

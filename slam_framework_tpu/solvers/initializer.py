@@ -1,6 +1,6 @@
 """Monocular two-view initializer: batched homography/essential RANSAC + reconstruction.
 
-TPU-native replacement for Initializer (reference: src/util/initializer.{h,cpp}).
+Replacement for Initializer (reference: src/util/initializer.{h,cpp}).
 The reference computes a homography and a fundamental matrix on two CPU threads over
 200 shared 8-point RANSAC sets (:57-89), scores both by symmetric transfer error,
 selects by RH = SH/(SH+SF) > 0.40 (:92-98), then decomposes (ReconstructH :568-736 /

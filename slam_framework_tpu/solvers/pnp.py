@@ -1,6 +1,6 @@
 """Batched PnP RANSAC for relocalization.
 
-TPU-native replacement for PnPsolver (reference: src/solvers/pnp_solver.{h,cpp}):
+Replacement for PnPsolver (reference: src/solvers/pnp_solver.{h,cpp}):
 the reference runs EPnP on random 4-point sets inside sequential adaptive RANSAC
 (:118-211). RANSAC is embarrassingly parallel, so here ALL hypotheses are solved at
 once: each hypothesis takes a random 6-point subset, solves the 11-dof DLT camera

@@ -1,6 +1,6 @@
 """Batched Horn-alignment Sim3 RANSAC for loop closing.
 
-TPU-native replacement for Sim3Solver (reference: src/solvers/sim3solver.{h,cpp}):
+Replacement for Sim3Solver (reference: src/solvers/sim3solver.{h,cpp}):
 Horn 1987 closed-form similarity from 3-point sets (:230-341) inside sequential RANSAC
 (:142-211). Here every hypothesis is computed at once: batched centroid/M-matrix,
 quaternion from the dominant eigenvector of the 4x4 N matrix (batched eigh), optional
@@ -140,7 +140,7 @@ def refine_sim3(
     huber2: float = 10.0,     # chi2 kernel delta^2 (optimizer.cpp:1019 deltaHuber=sqrt(10))
 ):
     """Gauss-Newton Sim3 refinement on reprojection error in BOTH images — the
-    TPU equivalent of Optimizer::OptimizeSim3 (optimizer.cpp:962-1152): forward
+    Batched equivalent of Optimizer::OptimizeSim3 (optimizer.cpp:962-1152): forward
     (exp(xi) . S) updates of the 7-dof tangent (rot, trans, log-scale; the scale
     row is zeroed when fix_scale), Huber-weighted normal equations, inliers
     re-gated each iteration. Fixed shapes, fixed iteration count."""

@@ -1,12 +1,12 @@
-"""SlamSystem façade: the public per-frame API over the staged TPU pipeline.
+"""SlamSystem façade: the public per-frame API over the staged device pipeline.
 
-TPU-native replacement for SlamSystem (reference: src/slam_system.{h,cpp}):
+Replacement for SlamSystem (reference: src/slam_system.{h,cpp}):
 construction from config (+ vocabulary), per-frame entry points TrackStereo /
 TrackRGBD / TrackMonocular (:89-224), localization-mode switch (:131-141), reset
 handling (:97-120), Shutdown (:226-247), SaveTrajectoryKITTI (:264-314) and
 SaveKeyFrameTrajectory (:316-349).
 
-Differences from the reference architecture (deliberate, TPU-first):
+Differences from the reference architecture (deliberate, accelerator-first):
   - The three reference threads are sequenced pipeline stages driven by the
     tracker's chunked device dispatch (see pipeline/tracker.py); no mutexes.
   - The ORB vocabulary: the reference requires a pre-trained ORBvoc.txt (the blob
@@ -153,7 +153,7 @@ class SlamSystem:
         return pose
 
     def track_stereo_device(self, pair, timestamp: float):
-        """Stereo entry for a (2, H, W) image pair ALREADY in device HBM — the
+        """Stereo entry for a (2, H, W) image pair ALREADY in device memory — the
         production ingestion path (sensor frames prefetched to the device ahead
         of compute; see StereoTracker.track_device)."""
         assert self.cfg.sensor == "stereo"
@@ -213,7 +213,7 @@ class SlamSystem:
             kf_store=self.tracker.local_mapper.kf_store,
             mesh=self.mesh,
         )
-        # the loop closer's in-flight BoW rides the tracker's drain RPC
+        # the loop closer's in-flight BoW rides the tracker's drain fetch
         # (drop a stale instance first: online vocab training rebuilds us)
         self.tracker.aux_fetch = [
             s for s in self.tracker.aux_fetch if not isinstance(s, LoopCloser)

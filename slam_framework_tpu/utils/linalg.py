@@ -1,10 +1,10 @@
-"""Small fixed-size linear solvers unrolled for TPU.
+"""Small fixed-size linear solvers, unrolled.
 
-jnp.linalg.solve lowers to LU with pivoting, which costs ~3-4 ms per call for a 6x6 on
-a v5e (sequential scalar pivot selection) — measured 147 ms for the 40 solves inside
-one pose-optimization scan vs 0.2 ms with the unrolled Cholesky below. All hot-loop
-solvers in this codebase are SPD normal equations, so Cholesky without pivoting is
-exact and the unrolled form compiles to pure VPU arithmetic.
+jnp.linalg.solve lowers to LU with pivoting (sequential scalar pivot selection), a
+poor fit for the tiny 6x6 systems inside the pose-optimization scan; its cost on the
+H100 is not measured. All hot-loop solvers in this codebase are SPD normal
+equations, so Cholesky without pivoting is exact and the unrolled form compiles to
+plain elementwise arithmetic.
 """
 
 from __future__ import annotations

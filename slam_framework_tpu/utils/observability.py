@@ -2,7 +2,7 @@
 
 The reference has no observability beyond std::cout prints (SURVEY.md §5.1/§5.5):
 manual wall-clock timing lives only in the example mains (examples/main_stereo.cpp:116-130)
-and lifecycle messages are unstructured prints. The TPU build makes metrics first-class:
+and lifecycle messages are unstructured prints. This build makes metrics first-class:
 
   - `StageTimers`   — per-stage wall-clock accumulators (dispatch / drain / keyframe /
                       ba / triangulation / loop), the replacement for the reference's
@@ -12,7 +12,8 @@ and lifecycle messages are unstructured prints. The TPU build makes metrics firs
                       with aggregate summaries and JSONL export.
   - `trace_span`    — jax.profiler TraceAnnotation wrapper so pipeline stages show up
                       named in xprof/perfetto traces (§5.1: "use JAX profiler traces
-                      + per-stage step timers as first-class output").
+                      + per-stage step timers as first-class output"). Captures are
+                      started and stopped with jax.profiler.start_trace/stop_trace.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import json
 import time
 from typing import Iterator, Optional
 
+import jax.profiler
 import numpy as np
 
 
@@ -116,32 +118,7 @@ def _json_default(o):
 
 @contextlib.contextmanager
 def trace_span(name: str) -> Iterator[None]:
-    """Named span in the JAX profiler timeline (no-op if profiling is off or the
-    profiler is unavailable on this backend)."""
-    try:
-        import jax.profiler
-
-        with jax.profiler.TraceAnnotation(name):
-            yield
-    except Exception:
+    """Named span in the JAX profiler timeline (costs next to nothing when no
+    trace is being captured). Errors raised in the body propagate."""
+    with jax.profiler.TraceAnnotation(name):
         yield
-
-
-def start_trace(log_dir: str) -> bool:
-    """Begin an xprof/perfetto trace capture; returns False if unavailable."""
-    try:
-        import jax.profiler
-
-        jax.profiler.start_trace(log_dir)
-        return True
-    except Exception:
-        return False
-
-
-def stop_trace() -> None:
-    try:
-        import jax.profiler
-
-        jax.profiler.stop_trace()
-    except Exception:
-        pass

@@ -1,10 +1,12 @@
 """Full-precision matmul helpers for geometry-critical math.
 
-On TPU, jnp default matmul precision routes fp32 through the MXU as bf16x bf16 passes,
-which is fine for descriptor scoring but catastrophic for pose/triangulation math
-(pixel-coordinate normal equations span ~1e6 dynamic range; observed DLT error on a
-v5e went from <2 cm at HIGHEST to ~5 m at default). All Lie/geometry/BA modules use
-these wrappers; throughput-bound descriptor kernels deliberately do not.
+On the H100, a float32 matmul left at JAX's default precision may run on the tensor
+cores in TF32, which keeps a 10-bit mantissa (about three decimal digits). That is
+catastrophic for pose/triangulation math: pixel-coordinate normal equations span a
+~1e6 dynamic range, and a translation 100 m from the origin loses centimetres per
+compose. All Lie/geometry/BA modules use these wrappers, and the one-hot selection
+matmuls whose results are compared exactly (ops/brief.py, the local-BA Hessian sum)
+pin HIGHEST themselves.
 """
 
 from __future__ import annotations

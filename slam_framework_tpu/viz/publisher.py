@@ -1,4 +1,4 @@
-"""Live map/trajectory publisher — the TPU build's RosPublisher equivalent.
+"""Live map/trajectory publisher — this build's RosPublisher equivalent.
 
 The reference's visualization layer is `RosPublisher` (src/ros/ros_publisher.{h,cpp}):
 two inner threads that poll the map at ~1 kHz and publish (a) the full camera path

@@ -1,4 +1,4 @@
-"""Tests for the MXU Hamming formulation, gated matcher, and stereo matching."""
+"""Tests for the matmul Hamming formulation, gated matcher, and stereo matching."""
 
 import cv2
 import jax.numpy as jnp

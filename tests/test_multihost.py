@@ -3,7 +3,7 @@
 Reference parity target: the reference has no distributed backend at all
 (SURVEY.md §2.3 row 4 — its fabric is in-process mutexes); SURVEY §5.8 mandates
 one here. This drives tools/multihost_demo.py: N real OS processes linked by
-jax.distributed (the same runtime layout as N TPU hosts, DCN replaced by
+jax.distributed (the same runtime layout as N accelerator hosts, the network replaced by
 localhost TCP), each running the shard_map programs of parallel/dist_ba.py and
 parallel/dist_pose_graph.py over the GLOBAL mesh, checked against the
 single-device optimizers."""

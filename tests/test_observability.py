@@ -4,6 +4,8 @@ reference has only unstructured prints; observability is first-class here)."""
 import json
 import time
 
+import pytest
+
 from slam_framework_tpu.utils.observability import (
     MetricsLog,
     StageTimers,
@@ -64,3 +66,9 @@ def test_trace_span_noop_safe():
     with trace_span("anything"):
         x = 1 + 1
     assert x == 2
+
+
+def test_trace_span_propagates_body_errors():
+    with pytest.raises(ValueError, match="from the body"):
+        with trace_span("failing"):
+            raise ValueError("from the body")

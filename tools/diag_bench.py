@@ -35,7 +35,7 @@ def main() -> None:
     ap.add_argument("--hw", type=float, default=10.0, help="corridor half width")
     args = ap.parse_args()
     if args.cpu:
-        os.environ.setdefault("SLAM_TPU_NO_COMPILE_CACHE", "1")  # CPU AOT cache loader is crash-prone
+        os.environ.setdefault("SLAM_NO_COMPILE_CACHE", "1")  # CPU AOT cache loader is crash-prone
         os.environ["JAX_PLATFORMS"] = "cpu"
 
     import jax

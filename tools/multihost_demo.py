@@ -3,7 +3,7 @@
 
 Spawns N real OS processes, each owning `--local-devices` virtual CPU devices,
 linked by `jax.distributed` (coordination service + Gloo collectives) — the
-same runtime layout as N TPU hosts on a pod slice, with DCN replaced by
+same runtime layout as N accelerator hosts, with the network replaced by
 localhost TCP. Every process runs the SAME shard_map programs from
 `parallel/dist_ba.py` and `parallel/dist_pose_graph.py` over the GLOBAL mesh;
 process 0 checks the distributed results against the single-device optimizers

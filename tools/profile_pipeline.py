@@ -37,13 +37,12 @@ def main() -> int:
     import jax
 
     if args.cpu:
-        os.environ.setdefault("SLAM_TPU_NO_COMPILE_CACHE", "1")  # CPU AOT cache loader is crash-prone
+        os.environ.setdefault("SLAM_NO_COMPILE_CACHE", "1")  # CPU AOT cache loader is crash-prone
         jax.config.update("jax_platform_name", "cpu")
 
     from slam_framework_tpu.config import SlamConfig
     from slam_framework_tpu.io import synthetic
     from slam_framework_tpu.pipeline.tracker import StereoTracker
-    from slam_framework_tpu.utils import observability
 
     cfg = SlamConfig()
     world = synthetic.make_world(
@@ -58,9 +57,8 @@ def main() -> int:
     tracker.timers.total_s.clear()
     tracker.timers.count.clear()
 
-    tracing = False
     if args.trace:
-        tracing = observability.start_trace(args.trace)
+        jax.profiler.start_trace(args.trace)
 
     frame_times = []
     t_run0 = time.perf_counter()
@@ -70,8 +68,8 @@ def main() -> int:
         frame_times.append(time.perf_counter() - t0)
     run_wall = time.perf_counter() - t_run0
 
-    if tracing:
-        observability.stop_trace()
+    if args.trace:
+        jax.profiler.stop_trace()
         print(f"trace written to {args.trace}", file=sys.stderr)
 
     ft = np.sort(np.asarray(frame_times))

@@ -81,7 +81,7 @@ def main() -> int:
     import jax
 
     if args.cpu:
-        os.environ.setdefault("SLAM_TPU_NO_COMPILE_CACHE", "1")  # CPU AOT cache loader is crash-prone
+        os.environ.setdefault("SLAM_NO_COMPILE_CACHE", "1")  # CPU AOT cache loader is crash-prone
         jax.config.update("jax_platform_name", "cpu")
 
     from slam_framework_tpu.bow import vocabulary as bow_vocab

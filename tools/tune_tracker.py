@@ -4,7 +4,7 @@
 Measures frames/s AND trajectory ATE across pipeline knobs so throughput gains
 that cost accuracy are visible immediately:
 
-  - sync_every: frames per device dispatch (RPC amortization vs keyframe lag)
+  - sync_every: frames per device dispatch (dispatch amortization vs keyframe lag)
   - local_window_points: local-map block capacity (association cost vs recall)
   - pose-opt schedule is fixed in track_ops (change there to sweep it)
 
@@ -71,7 +71,7 @@ def main() -> int:
     import jax
 
     if args.cpu:
-        os.environ.setdefault("SLAM_TPU_NO_COMPILE_CACHE", "1")  # CPU AOT cache loader is crash-prone
+        os.environ.setdefault("SLAM_NO_COMPILE_CACHE", "1")  # CPU AOT cache loader is crash-prone
         jax.config.update("jax_platform_name", "cpu")
 
     from slam_framework_tpu.config import CapacityConfig, SlamConfig

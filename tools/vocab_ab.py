@@ -151,7 +151,7 @@ def main() -> int:
     ap.add_argument("--gt-radius", type=float, default=6.0)
     args = ap.parse_args()
 
-    os.environ.setdefault("SLAM_TPU_NO_COMPILE_CACHE", "1")
+    os.environ.setdefault("SLAM_NO_COMPILE_CACHE", "1")
     import jax
 
     jax.config.update("jax_platform_name", "cpu")
